@@ -19,13 +19,14 @@ structure. Calibration: noise=0.76 (Bayes floor), latent variance
 signal^2/rank_true = 0.195, bias std 0.38/side => var 0.289; global
 sqrt(.76^2 + .195 + .289) = 1.03; bias-only sqrt(.76^2 + .195) = 0.88.
 
-Runs rank-64 biased MF with the fused Pallas epoch kernel at full 10M-rating
-scale (90/10 split, the split used for the published 0.86 figures), logging
-one JSON line per epoch to benchmarks/ML10M_CURVE.jsonl and a summary to
-stdout. Reference training loop semantics: run(MF&), main.cc:36-52;
-eta schedule model.cc:36-38.
+Runs rank-64 biased MF with the plain SGD epoch (ops/sgd.py) at full
+10M-rating scale (90/10 split, the split used for the published 0.86
+figures), printing one line per epoch and a JSON summary, and with --out
+also one JSON line per epoch to that file. Reference training loop
+semantics: run(MF&), main.cc:36-52; eta schedule model.cc:36-38.
 
 Usage: python benchmarks/converge_ml10m.py [--iters N] [--eta E] [--lam L]
+           [--out curve.jsonl]
 """
 
 import argparse
@@ -42,16 +43,13 @@ import numpy as np
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=30)
-    # Reference default eta (main.cc:100). Window-step saturation keeps the
-    # production kernels finite here even on the zipfy heads; measured
-    # crossing at 0.02 = epoch 7 (best 0.832), at 0.015 = epoch 8.
+    # Reference default eta (main.cc:100).
     ap.add_argument("--eta", type=float, default=0.02)
     ap.add_argument("--lam", type=float, default=5e-3)
     ap.add_argument("--gam", type=float, default=0.3)
     ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--batch", type=int, default=4096)
-    ap.add_argument("--out", default=os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "ML10M_CURVE.jsonl"))
+    ap.add_argument("--out", help="per-epoch JSONL curve file")
     args = ap.parse_args()
 
     import jax
@@ -86,57 +84,36 @@ def main() -> int:
                       gb=gb, seed=0)
     params = init_mf(jax.random.PRNGKey(0), nu, nv, cfg.dim, gb=gb)
 
-    on_tpu = jax.default_backend() != "cpu"
-    if on_tpu:
-        # The PRODUCTION kernel stack (balance + geometry chooser + window
-        # saturation + slot switching), so the curve certifies what users
-        # actually run.
-        from tpu_mf.train.loop import _pick_mf_runners
-
-        runner, slot_runner, switch_it = _pick_mf_runners(
-            cfg, train, params, lambda m: print(m, flush=True)
-        )
-        tables = runner.pad(params)
-    else:  # CPU smoke path (tiny --iters only)
-        from tpu_mf.ops.sgd import sgd_epoch
+    from tpu_mf.ops.sgd import sgd_epoch
 
     rows = []
     crossed = None
     t_train = 0.0
-    f = open(args.out, "w")
+    f = open(args.out, "w") if args.out else None
     for it in range(1, cfg.iters + 1):
         eta = cfg.eta_at(it)
+        u, v, r, w = train.to_batches(cfg.batch_size, shuffle_seed=it)
+        batches = tuple(jnp.asarray(x) for x in (u, v, r, w))
         t0 = time.perf_counter()
-        if on_tpu:
-            if (slot_runner is not None and it >= switch_it
-                    and runner is not slot_runner):
-                tables = slot_runner.pad(runner.trim(tables))
-                runner = slot_runner
-            tables = runner.epoch(tables, eta, cfg.lam, float(gb),
-                                  epoch_idx=it - 1)
-            _ = float(jnp.sum(tables[0]))
-        else:
-            u, v, r, w = train.to_batches(cfg.batch_size, shuffle_seed=it)
-            batches = tuple(jnp.asarray(x) for x in (u, v, r, w))
-            params = sgd_epoch(params, batches, jnp.float32(eta),
-                               jnp.float32(cfg.lam))
-            _ = float(jnp.sum(params.theta))
+        params = sgd_epoch(params, batches, jnp.float32(eta),
+                           jnp.float32(cfg.lam))
+        jax.block_until_ready(params.theta)
         dt = time.perf_counter() - t0
         t_train += dt
-        p = runner.trim(tables) if on_tpu else params
-        tr = float(rmse(p, test))
-        trn = float(rmse(p, train))
-        row = {"epoch": it, "eta": eta, "test_rmse": round(tr, 5),
-               "train_rmse": round(trn, 5), "epoch_s": round(dt, 4),
-               "updates_per_s": round(len(train) / dt)}
+        tr = float(rmse(params, test))
+        trn = float(rmse(params, train))
+        row = {"epoch": it, "eta": eta, "test_rmse": tr, "train_rmse": trn,
+               "epoch_s": dt, "device": jax.devices()[0].device_kind}
         rows.append(row)
-        f.write(json.dumps(row) + "\n")
-        f.flush()
+        if f is not None:
+            f.write(json.dumps(row) + "\n")
+            f.flush()
         print(f"epoch {it:3d}: eta={eta:.5f} train={trn:.4f} test={tr:.4f} "
-              f"({dt*1e3:.0f} ms, {len(train)/dt/1e6:.0f}M up/s)")
+              f"({dt*1e3:.0f} ms{', includes compilation' if it == 1 else ''})")
         if crossed is None and tr <= 0.86:
             crossed = it
-    f.close()
+    if f is not None:
+        f.close()
 
     best = min(r["test_rmse"] for r in rows)
     print(json.dumps({
@@ -144,8 +121,8 @@ def main() -> int:
         "value": crossed if crossed is not None else -1,
         "unit": "epochs",
         "best_test_rmse": best,
-        "train_s_total": round(t_train, 2),
-        "curve": args.out,
+        "train_s_total": t_train,
+        "device": jax.devices()[0].device_kind,
     }))
     return 0
 

@@ -17,3 +17,11 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU; skips without one (on the card: "
+        "python -m pytest -m gpu tests/)",
+    )

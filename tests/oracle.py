@@ -76,3 +76,87 @@ def predict(theta, phi, bu, bv, gb, u, v):
 def rmse(theta, phi, bu, bv, gb, u, v, r):
     e = r - predict(theta, phi, bu, bv, gb, u, v)
     return float(np.sqrt(np.mean(e * e)))
+
+
+def _act(score, loss):
+    return 1.0 / (1.0 + np.exp(-score)) if loss == 1 else score
+
+
+def sgld_sequential(params, lams, ur, vr, u, v, r, eta, temp, bound, ntrain,
+                    noise, gcount=0, gcountu=None, gcountv=None):
+    """Sequential DP-SGLD (reference: SgldFilter, src/dpmf.h:37-92).
+
+    Per rating, in order: advance the global update counter; inject the lazy
+    Langevin noise sqrt(temp*eta*c) * N(0,1) into theta_u/phi_v/bu_u/bv_v,
+    c = updates since that row was last touched (dpmf.h:61-70); stamp the
+    rows; then the privacy-scaled gradient step with inverse-frequency,
+    per-dimension decay (dpmf.h:72-88).
+
+    params = (theta, phi, bu, bv, gb); lams = (lambda_u (D,), lambda_v (D,),
+    lambda_ub, lambda_vb, lambda_r). noise(i) returns the four standard
+    normal draws (theta (D,), phi (D,), bu, bv) for rating i. Returns
+    ((theta, phi, bu, bv), gcountu, gcountv, gcount) in float64.
+    """
+    theta, phi, bu, bv = (np.asarray(x, np.float64).copy() for x in params[:4])
+    gb = float(params[4])
+    lam_u, lam_v, lam_ub, lam_vb, lam_r = (np.asarray(x, np.float64) for x in lams)
+    gcountu = np.zeros(len(bu), np.int64) if gcountu is None else np.array(gcountu[:len(bu)], np.int64)
+    gcountv = np.zeros(len(bv), np.int64) if gcountv is None else np.array(gcountv[:len(bv)], np.int64)
+    scal = eta * ntrain * bound * lam_r
+    for i in range(len(u)):
+        uu, vv = int(u[i]), int(v[i])
+        gcount += 1
+        cu, cv = gcount - gcountu[uu], gcount - gcountv[vv]
+        nt, nphi, nbu, nbv = noise(i)
+        theta[uu] += np.sqrt(temp * eta * cu) * nt
+        phi[vv] += np.sqrt(temp * eta * cv) * nphi
+        bu[uu] += np.sqrt(temp * eta * cu) * nbu
+        bv[vv] += np.sqrt(temp * eta * cv) * nbv
+        gcountu[uu] = gcountv[vv] = gcount
+        err = scal * (r[i] - theta[uu] @ phi[vv] - bu[uu] - bv[vv] - gb)
+        t_old = theta[uu].copy()
+        theta[uu] = theta[uu] - eta * ur[uu] * bound * (lam_u * theta[uu]) + err * phi[vv]
+        phi[vv] = phi[vv] - eta * vr[vv] * bound * (lam_v * phi[vv]) + err * t_old
+        bu[uu] = (1 - eta * lam_ub * ur[uu] * bound) * bu[uu] + err
+        bv[vv] = (1 - eta * lam_vb * vr[vv] * bound) * bv[vv] + err
+    return (theta, phi, bu, bv), gcountu, gcountv, gcount
+
+
+def adreg_sequential(params, shadow, lams, valid, u, v, r, eta, eta_reg, loss,
+                     samples):
+    """Sequential adaptive-regularization SGD (reference: AdRegFilter,
+    src/admf.h:52-86; updateReg/updateUV/updateBias, model.h:86-102).
+
+    Per rating: snapshot the rows into the shadow tables, take the SGD step
+    with the four learned regularizers, then one hypergradient step on the
+    lambdas, averaged over the validation records samples[i] (the reference
+    draws one record per user; a batch of one rating has one user).
+
+    params = (theta, phi, bu, bv, gb); shadow = (theta_old, phi_old,
+    bu_old, bv_old); lams = (lam_u, lam_v, lam_bu, lam_bv); valid =
+    (u, v, r). Returns (params4, shadow4, lams4) in float64.
+    """
+    theta, phi, bu, bv = (np.asarray(x, np.float64).copy() for x in params[:4])
+    gb = float(params[4])
+    to, po, buo, bvo = (np.asarray(x, np.float64).copy() for x in shadow)
+    lam_u, lam_v, lam_bu, lam_bv = (float(x) for x in lams)
+    vu, vv_, vr = (np.asarray(x) for x in valid)
+    for i in range(len(u)):
+        uu, vv = int(u[i]), int(v[i])
+        t, p, b_u, b_v = theta[uu].copy(), phi[vv].copy(), bu[uu], bv[vv]
+        to[uu], po[vv], buo[uu], bvo[vv] = t, p, b_u, b_v
+        err = eta * (r[i] - _act(t @ p + b_u + b_v + gb, loss))
+        theta[uu] = (1 - eta * lam_u) * t + err * p
+        phi[vv] = (1 - eta * lam_v) * p + err * t
+        bu[uu] = (1 - eta * lam_bu) * b_u + err
+        bv[vv] = (1 - eta * lam_bv) * b_v + err
+        k = np.asarray(samples[i])
+        su, sv, sr = vu[k], vv_[k], vr[k]
+        t_new, p_new = theta[su], phi[sv]
+        grad = sr - _act(np.einsum("kd,kd->k", t_new, p_new) + bu[su] + bv[sv] + gb, loss)
+        scale = eta_reg * eta / len(k)
+        lam_u = max(0.0, lam_u - scale * np.sum(grad * np.einsum("kd,kd->k", to[su], p_new)))
+        lam_v = max(0.0, lam_v - scale * np.sum(grad * np.einsum("kd,kd->k", t_new, po[sv])))
+        lam_bu = max(0.0, lam_bu - scale * np.sum(grad * buo[su]))
+        lam_bv = max(0.0, lam_bv - scale * np.sum(grad * bvo[sv]))
+    return (theta, phi, bu, bv), (to, po, buo, bvo), (lam_u, lam_v, lam_bu, lam_bv)

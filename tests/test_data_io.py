@@ -67,12 +67,23 @@ def test_proto_roundtrip_python(tmp_path):
     assert_same_ratings(ds, textfmt.read_any(p, nu=ds.nu, nv=ds.nv))
 
 
-@pytest.mark.skipif(
-    not __import__("tpu_mf.native", fromlist=["available"]).available(),
-    reason="native library not built",
-)
-def test_proto_native_matches_python(tmp_path):
-    from tpu_mf import native
+@pytest.fixture(scope="module")
+def native():
+    """The C++ codec, built from tpu_mf/native/mfdata.cpp when missing
+    (the library is a build output, not a committed file)."""
+    from tpu_mf import native as mod
+
+    if not mod.available():
+        if shutil.which("make") is None or shutil.which("g++") is None:
+            pytest.skip("no C++ toolchain to build tpu_mf/native")
+        subprocess.run(["make", "-C", os.path.dirname(mod.__file__)],
+                       check=True, capture_output=True, timeout=300)
+        mod._LIB_TRIED = False
+    assert mod.available()
+    return mod
+
+
+def test_proto_native_matches_python(tmp_path, native):
 
     ds = small_ds(n=2000, nu=100, nv=60)
     ppy = str(tmp_path / "py.pb")

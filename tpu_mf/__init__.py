@@ -1,6 +1,6 @@
-"""tpu-mf: a TPU-native matrix-factorization training framework.
+"""tpu-mf: a matrix-factorization training framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the full capability set of the
+Built with the full capability set of the
 reference CPU trainer ``cjolivier01/experimental-mf`` (TBB Hogwild SGD /
 DP-SGLD / adaptive-regularization MF over protobuf rating blocks):
 
@@ -13,9 +13,9 @@ DP-SGLD / adaptive-regularization MF over protobuf rating blocks):
   scalars (Rendle's method; reference: src/admf.h, src/model.h:74-118),
 * streaming data ingest, RMSE evaluation, checkpointing/warm-start, CLI.
 
-The compute path is pure JAX + Pallas TPU kernels; factor tables shard over a
-``jax.sharding.Mesh`` and scale via diagonal-block (Jellyfish-style) DSGD with
-ICI collectives.
+The compute path is plain jax.numpy/lax compiled by XLA (NVIDIA GPUs, or the
+CPU in tests); for MF, factor tables shard over a ``jax.sharding.Mesh`` and
+scale via diagonal-block (Jellyfish-style) DSGD with ppermute collectives.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """Command-line trainer mirroring the reference's ``./mf`` flags.
 
 Reference: src/main.cc:6-33 (help text), 95-164 (parser + dispatch). Every
-reference flag is accepted with the same name and default; TPU-native knobs
+reference flag is accepted with the same name and default; execution knobs
 (--batch_size, --seed, --dtype, --mesh) are additive. Training data may be in
 any supported format (length-prefixed protobuf frames, raw/userwise text,
 MovieLens files) — auto-detected, unlike the reference which requires its
@@ -24,7 +24,7 @@ from tpu_mf.config import TrainConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu-mf",
-        description="TPU-native matrix factorization trainer (SGD / DP-SGLD / AdaptReg)",
+        description="Matrix factorization trainer (SGD / DP-SGLD / AdaptReg)",
     )
     # Reference flags (src/main.cc:106-137) — same names, same defaults.
     p.add_argument("--train", help="training data file (any supported format)")
@@ -40,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fly", type=int, default=8,
                    help="host prefetch depth (reference: TBB pipeline tokens)")
     p.add_argument("--stride", type=int, default=2,
-                   help="accepted for parity; software prefetch n/a on TPU")
+                   help="accepted for parity; software prefetch has no "
+                        "meaning here")
     p.add_argument("--eta", type=float, default=2e-2)
     p.add_argument("--lambda", type=float, default=5e-3, dest="lam")
     p.add_argument("--gam", type=float, default=1.0)
@@ -52,22 +53,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hyperb", type=float, default=100.0)
     p.add_argument("--temp", type=float, default=1.0)
     p.add_argument("--noise_size", type=int, default=2_000_000_000,
-                   help="accepted for parity; noise comes from on-chip PRNG")
+                   help="accepted for parity; noise comes from jax.random")
     p.add_argument("--eta_reg", type=float, default=2e-3)
     p.add_argument("--loss", type=int, default=0, choices=[0, 1])
     p.add_argument("--measure", type=int, default=0)
-    # TPU-native knobs.
+    # Execution knobs (no reference counterpart).
     p.add_argument("--batch_size", type=int, default=4096)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--mesh", type=int, default=1,
-                   help="devices for diagonal-block DSGD (1 = single chip)")
-    p.add_argument("--no-pallas", action="store_true",
-                   help="disable fused Pallas kernels (pure-JAX fallback)")
-    p.add_argument("--no-dense", action="store_true",
-                   help="disable the dense-cell MF kernel (keep the "
-                        "streaming one-hot kernels even when the cell "
-                        "matrices fit HBM)")
+                   help="devices for diagonal-block DSGD (1 = one device; "
+                        "--alg mf without --stream only)")
     p.add_argument("--stream", action="store_true",
                    help="stream the training file from disk each epoch "
                         "instead of staging it on device (out-of-core; "
@@ -96,8 +92,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         tau=args.tau, hypera=args.hypera, hyperb=args.hyperb, temp=args.temp,
         noise_size=args.noise_size, eta_reg=args.eta_reg, loss=args.loss,
         measure=args.measure, batch_size=args.batch_size, seed=args.seed,
-        dtype=args.dtype, mesh=args.mesh, use_pallas=not args.no_pallas,
-        use_dense=not args.no_dense,
+        dtype=args.dtype, mesh=args.mesh,
         metrics=args.metrics, trace=args.trace, resume=args.resume,
     )
 
@@ -115,6 +110,15 @@ def main(argv=None) -> int:
     if cfg.resume and not cfg.result:
         print("--resume requires --result (checkpoint prefix)", file=sys.stderr)
         return 1
+    try:
+        cfg.check_mesh(cfg.alg, stream=args.stream)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 1
+
+    from tpu_mf.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     # Multi-host: jax.distributed, gated on the standard coordinator env
     # vars (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) —

@@ -1,8 +1,8 @@
 """Training configuration.
 
 Mirrors every CLI flag of the reference trainer (reference: src/main.cc:95-164;
-defaults at src/main.cc:97-105) plus TPU-native execution knobs that have no
-reference counterpart (batch size, mesh shape, dtype, RNG seed).
+defaults at src/main.cc:97-105) plus execution knobs that have no reference
+counterpart (batch size, mesh shape, dtype, RNG seed).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ class TrainConfig:
     hypera: float = 1.0
     hyperb: float = 100.0
     temp: float = 1.0
-    noise_size: int = 2_000_000_000  # accepted for CLI parity; unused (on-chip PRNG)
+    noise_size: int = 2_000_000_000  # accepted for CLI parity; unused (jax.random noise)
 
     # --- adaptive regularization (reference: --eta_reg/--loss/--measure) ---
     eta_reg: float = 2e-3
@@ -51,22 +51,19 @@ class TrainConfig:
 
     # --- legacy concurrency flags, accepted for parity (reference: --fly/--stride).
     # fly was TBB pipeline tokens, stride a software-prefetch distance; neither has
-    # meaning on TPU. fly seeds the host prefetch depth of the input pipeline.
+    # meaning on an accelerator. fly seeds the host prefetch depth of the input
+    # pipeline.
     fly: int = 8
     stride: int = 2
 
-    # --- TPU-native execution knobs (no reference counterpart) ---
+    # --- execution knobs (no reference counterpart) ---
     # Ratings per synchronous SGD step. Stability rule of thumb on skewed
-    # data: a row appearing k times in one gather window accumulates k stale
+    # data: a row appearing k times in one batch accumulates k stale
     # gradients, so keep (batch_size * max_item_share) * eta well below 2.
-    # The fused TPU kernels apply 8 sequential sub-batches per step, which
-    # relaxes this by 8x relative to the XLA path.
     batch_size: int = 4096
     seed: int = 0
     dtype: str = "float32"     # storage dtype of factor tables
     mesh: int = 1              # number of devices for diagonal-block DSGD
-    use_pallas: bool = True    # use fused Pallas kernel when eligible
-    use_dense: bool = True     # dense-cell MF kernel when cells fit HBM
     eval_batch: int = 1 << 20  # chunk size for RMSE evaluation
 
     # --- observability / failure recovery (SURVEY §5; no reference counterpart) ---
@@ -74,6 +71,25 @@ class TrainConfig:
     trace: Optional[str] = None     # jax.profiler trace dir
     resume: bool = False            # auto checkpoint/resume per round (io/resume.py)
     resume_every: int = 1           # save-round cadence when resume is on
+
+    def check_mesh(self, alg: str, stream: bool = False) -> None:
+        """Refuse the mesh runs that have no implementation.
+
+        Only in-memory MF has a mesh epoch (parallel/dsgd.py). DP-SGLD and
+        AdaptReg on a mesh, and --stream with --mesh, are not implemented;
+        this raises instead of quietly training on one device.
+        """
+        if self.mesh <= 1:
+            return
+        if stream:
+            raise ValueError(
+                f"--stream with --mesh {self.mesh} is not supported: "
+                "streamed training runs on one device (drop --mesh, or "
+                "train in memory without --stream)")
+        if alg != "mf":
+            raise ValueError(
+                f"--mesh {self.mesh} is supported for --alg mf only; "
+                f"--alg {alg} trains on one device (drop --mesh)")
 
     def eta_at(self, round_: int) -> float:
         """LR schedule eta(round) = eta0 / round**gam (reference: model.cc:36-38)."""

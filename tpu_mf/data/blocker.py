@@ -1,4 +1,4 @@
-"""Diagonal-block partitioner for multi-chip DSGD (Jellyfish-style).
+"""Diagonal-block partitioner for multi-device DSGD (Jellyfish-style).
 
 The reference is single-node shared-memory (SURVEY §2: no distributed code);
 its Hogwild races don't translate to SPMD hardware. Instead, ratings are

@@ -19,7 +19,7 @@ Two formats:
    model.cc:100; cadence round>=100 && round%20==0 at model.cc:309).
 
 2. **Native npz** — full training state (params + hyper state + RNG key +
-   round counter) for exact resume; the TPU-native default.
+   round counter) for exact resume; the native default.
 """
 
 from __future__ import annotations

@@ -1,14 +1,14 @@
-"""Host-side streaming input pipeline — the TBB pipeline's TPU equivalent (C8).
+"""Host-side streaming input pipeline — the TBB pipeline's equivalent (C8).
 
 Reference: a 3-stage tbb::pipeline with ``fly`` tokens — serial fread of
 length-prefixed frames into a recycled buffer pool, parallel protobuf decode,
-parallel Hogwild update (src/mf.h:6-70, src/main.cc:42-50). On TPU the
+parallel Hogwild update (src/mf.h:6-70, src/main.cc:42-50). Here the
 analogue is: a background thread parses frames into fixed-size COO batches
 and stages them onto the device (``jax.device_put``) up to ``fly`` batches
 ahead of the jitted update step, so host I/O and device compute overlap.
 
 Used for datasets too large to pre-stage on device; in-memory datasets go
-through the faster scan/Pallas epoch paths (tpu_mf.ops).
+through the faster scanned epochs (tpu_mf.ops).
 """
 
 from __future__ import annotations

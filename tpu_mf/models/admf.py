@@ -1,6 +1,6 @@
 """Adaptive-regularization MF state (Rendle's method).
 
-TPU-native equivalent of the reference's ``AdaptRegMF`` (reference:
+Equivalent of the reference's ``AdaptRegMF`` (reference:
 src/model.h:74-118, src/model.cc:355-415, src/admf.h). Four scalar
 regularizers lam_u / lam_v / lam_bu / lam_bv are learned online by
 hypergradient steps against a validation sample; full shadow copies of the

@@ -1,6 +1,6 @@
 """DPMF model state: differentially-private SGLD matrix factorization.
 
-TPU-native equivalent of the reference's ``DPMF`` class (reference:
+Equivalent of the reference's ``DPMF`` class (reference:
 src/model.h:32-72, src/model.cc:197-352; paper arXiv:1505.01419). State beyond
 the base MF tables:
 

@@ -4,7 +4,7 @@ The reference's only metric is RMSE (``--measure``: "support RMSE",
 main.cc:33; calc_mse model.cc:41-73) — matched by tpu_mf.models.mf.rmse.
 Production recommenders also gate on ranking quality, so top-k metrics are
 provided on top of the batched serving scorer (models/serving.py): score the
-full catalog per user on the MXU, mask training items, take top-k, and
+full catalog per user with one matmul, mask training items, take top-k, and
 compare against each user's held-out positives.
 
 Host-side bookkeeping is fully vectorized (sorted-array membership via

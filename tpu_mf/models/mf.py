@@ -1,6 +1,6 @@
 """Core biased-MF model state and evaluation.
 
-TPU-native equivalent of the reference's ``MF`` class (reference: src/model.h:6-30,
+Equivalent of the reference's ``MF`` class (reference: src/model.h:6-30,
 src/model.cc:10-73): factor tables theta (nu, dim) and phi (nv, dim), bias
 vectors bu/bv, and a scalar global bias gb, held as a JAX pytree instead of
 cache-line-aligned malloc'd row arrays. Gaussian(0, 1e-2) init matches

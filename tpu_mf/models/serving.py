@@ -3,7 +3,7 @@
 The reference has NO serving path — prediction exists only inline in its
 eval and hypergradient code (SURVEY §3.5; pred formula at model.cc:62,
 model.h:87). Here scoring and top-k recommendation are first-class, jitted,
-and batched: score all items for a batch of users with one MXU matmul, mask
+and batched: score all items for a batch of users with one matmul, mask
 already-seen items, and take top-k on device.
 """
 
@@ -23,10 +23,17 @@ def score_all_items(params: MFParams, users: jax.Array) -> jax.Array:
     """Scores for every item for each user in ``users``: (B, nv).
 
     pred[b, j] = theta_{u_b} . phi_j + bu_{u_b} + bv_j + gb — one batched
-    matmul on the MXU instead of the reference's per-pair cblas_sdot.
+    matmul instead of the reference's per-pair cblas_sdot.
+
+    Precision HIGHEST: a float32 matmul may otherwise run in TF32 on a GPU
+    (about three decimal digits), which reorders near-tied items against
+    the float32 scores that training and RMSE evaluation compute.
     """
     t = params.theta[users].astype(jnp.float32)            # (B, D)
-    scores = t @ params.phi.astype(jnp.float32).T          # (B, nv)
+    scores = jnp.matmul(                                   # (B, nv)
+        t, params.phi.astype(jnp.float32).T,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     return (
         scores
         + params.bu[users].astype(jnp.float32)[:, None]

@@ -1,11 +1,11 @@
 """Native (C++) data-plane acceleration.
 
 The reference's runtime is native C++ for CPU-side reasons (TBB pipeline,
-protobuf decode, MKL math — reference: src/mf.h:6-70, src/Makefile). The TPU
+protobuf decode, MKL math — reference: src/mf.h:6-70, src/Makefile). This
 rebuild keeps the *data plane* native: a small C++ library (mfdata.cpp) that
 parses/writes length-prefixed protobuf block streams and shuffles/bins COO
 ratings at memory-bandwidth speed, exposed through ctypes with a pure-Python
-fallback (tpu_mf.data.proto).
+fallback (tpu_mf.data.proto). Build it with ``make -C tpu_mf/native``.
 """
 
 from __future__ import annotations

@@ -1,36 +1,1 @@
 from tpu_mf.ops.sgd import sgd_batch_update, sgd_epoch  # noqa: F401
-
-
-def make_epoch_runner(train_ds, params, batch_size, use_pallas=True, seed=0):
-    """Choose the fastest eligible epoch implementation for a dataset.
-
-    Returns (run_epoch, name): run_epoch(params, eta, lam) -> params.
-    The fused Pallas kernel is used when eligible (dim <= 253, item table
-    fits VMEM, TPU backend); otherwise the pure-XLA gather/scatter path.
-    """
-    import jax
-    import jax.numpy as jnp
-
-    if use_pallas and jax.default_backend() != "cpu":
-        from tpu_mf.ops.pallas_sgd import PallasEpochRunner, pallas_eligible
-
-        if pallas_eligible(params, batch_size):
-            runner = PallasEpochRunner(
-                train_ds, batch=max(1024, batch_size), seed=seed
-            )
-
-            def run_pallas(params, eta, lam):
-                tables = runner.pad(params)
-                tables = runner.epoch(tables, float(eta), float(lam), float(params.gb))
-                return runner.trim(tables)
-
-            run_pallas.runner = runner
-            return run_pallas, "pallas"
-
-    u, v, r, w = train_ds.to_batches(batch_size, shuffle_seed=seed)
-    batches = tuple(jnp.asarray(x) for x in (u, v, r, w))
-
-    def run_xla(params, eta, lam):
-        return sgd_epoch(params, batches, jnp.float32(eta), jnp.float32(lam))
-
-    return run_xla, "xla"

@@ -1,6 +1,6 @@
 """Batched adaptive-regularization SGD update.
 
-TPU-native replacement for the reference's ``AdRegFilter`` hot loop
+Batched replacement for the reference's ``AdRegFilter`` hot loop
 (reference: src/admf.h:52-86). Per rating the reference:
 
 1. snapshots theta_u / phi_v / biases into shadow tables (admf.h:67-68,77-78);

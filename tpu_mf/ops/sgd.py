@@ -1,6 +1,6 @@
 """Batched synchronous SGD update for biased MF.
 
-TPU-native replacement for the reference's Hogwild per-rating inner loop
+Batched replacement for the reference's Hogwild per-rating inner loop
 (reference: src/mf.h:72-133). The per-rating math is identical:
 
     err       = eta * (r - theta_u . phi_v - bu_u - bv_v - gb)

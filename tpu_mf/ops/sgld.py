@@ -1,6 +1,6 @@
 """Batched DP-SGLD update: Langevin noise + privacy-scaled gradient step.
 
-TPU-native replacement for the reference's ``SgldFilter`` hot loop (reference:
+Batched replacement for the reference's ``SgldFilter`` hot loop (reference:
 src/dpmf.h:37-92). Per rating the reference does, under a per-item mutex:
 
 1. lazy noise injection: add sqrt(temp*eta*c) * N(0,1) to theta_u / phi_v /
@@ -20,7 +20,7 @@ Here a batch of B ratings advances the global counter by B; every row touched
 in the batch receives ONE noise draw of variance temp*eta*(count since last
 touch), which telescopes over an epoch to exactly the noise mass the lazy
 per-rating scheme injects (SURVEY §7 design stance). Noise comes from the
-on-chip threefry PRNG instead of a lookup table — fresh i.i.d. normals, which
+threefry PRNG (jax.random) instead of a lookup table — fresh i.i.d. normals, which
 is statistically stronger than the reference's recycled table.
 """
 

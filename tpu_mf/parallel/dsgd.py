@@ -2,7 +2,7 @@
 
 Replaces the reference's Hogwild shared-memory parallelism (reference:
 src/mf.h:72-133 races on theta/phi; SURVEY §2 "parallelism strategies") with
-the TPU-native scheme from SURVEY §7:
+the synchronous scheme from SURVEY §7:
 
 * theta/bu shard over the user axis: device p owns rows
   [p*chunk_u, (p+1)*chunk_u).
@@ -11,7 +11,7 @@ the TPU-native scheme from SURVEY §7:
 * Substep s processes the P blocks of diagonal s — (p, (p+s) mod P) — which
   touch pairwise-disjoint user rows and item rows, so all devices run the
   batched SGD kernel on their local shards race-free, then the item shards
-  hop one position around the ring (lax.ppermute over ICI).
+  hop one position around the ring (lax.ppermute; NCCL between GPUs).
 * One epoch = P substeps; after the last hop the item shards are home, so
   the epoch output has canonical layout.
 
@@ -100,7 +100,7 @@ def _epoch_shardmap(mesh: Mesh, n_dev: int):
                 return sgd_batch_update(pp, batch, eta, lam), None
 
             params, _ = jax.lax.scan(step, params, xs)
-            # Rotate item shards one hop around the ring (ICI neighbor xfer).
+            # Rotate item shards one hop around the ring.
             phi_next = jax.lax.ppermute(params.phi, AXIS, perm)
             bv_next = jax.lax.ppermute(params.bv, AXIS, perm)
             return (params.theta, params.bu, phi_next, bv_next), None
@@ -156,6 +156,30 @@ def put_blocks(mesh: Mesh, blocks: DiagonalBlocks):
         owned = local_user_shards(mesh)
         return tuple(put_host_local(mesh, x[owned], owned) for x in arrays)
     return tuple(jax.device_put(x, shard) for x in arrays)
+
+
+def shard_params(mesh: Mesh, params: MFParams, gb: float) -> ShardedMF:
+    """Lay host-side (or single-device) MF params out for the mesh: rows
+    zero-padded to a multiple of the device count, then row-sharded. Under
+    jax.distributed each process stages only its own devices' row chunks
+    (put_row_sharded; params are identical across processes — same seed)."""
+    from tpu_mf.parallel.multihost import put_row_sharded
+
+    n_dev = mesh.devices.size
+    nu, nv = params.theta.shape[0], params.phi.shape[0]
+
+    def pad(x, n):
+        h = np.asarray(x)
+        rows = cdiv(n, n_dev) * n_dev
+        return put_row_sharded(
+            mesh, np.pad(h, ((0, rows - n),) + ((0, 0),) * (h.ndim - 1)))
+
+    return ShardedMF(
+        theta=pad(params.theta, nu), phi=pad(params.phi, nv),
+        bu=pad(params.bu, nu), bv=pad(params.bv, nv),
+        gb=jnp.asarray(gb, params.theta.dtype),
+        nu=nu, nv=nv,
+    )
 
 
 def gather_params(state: ShardedMF) -> MFParams:

@@ -1,9 +1,10 @@
 """Device mesh construction and sharding helpers.
 
 The reference has no distributed backend (SURVEY §2: single-node TBB/OpenMP
-only); this layer is designed fresh for TPU: a 1-D mesh over which the user
-axis of theta/bu is sharded, with item shards rotating over the ring via
-ppermute (ICI neighbor exchange — the cheapest possible collective pattern).
+only); this layer is designed fresh: a 1-D mesh over which the user axis of
+theta/bu is sharded, with item shards rotating over the ring via ppermute
+(neighbour exchange; on GPUs every card reaches every other over NVLink, so
+the mesh needs no torus shape).
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
 """Multi-host mesh support: jax.distributed init + host-local data staging.
 
-Round-3 VERDICT #4/#8: the multi-host / DCN data feed was a design note
-(PARITY.md); this module is that note as code. The reference has no
+The reference has no
 distributed backend at all (single-process TBB/OpenMP — SURVEY §2), so the
 semantics are ours to define:
 
@@ -9,14 +8,14 @@ semantics are ours to define:
   coordinator env vars (or explicit args) and is a no-op single-process, so
   every entry point can call it unconditionally.
 * The diagonal-block schedule partitions by USER shard first
-  (io/stream_sharded.DiagonalShardStore keys files by (p, s)), so each host
-  only needs the blocks of the user shards its local devices own —
+  (data/blocker.py: axis 0 of the block stack is the user shard), so each
+  host only needs the blocks of the user shards its local devices own —
   `local_user_shards` names them.
 * `put_host_local` builds a global row-sharded array from each host's local
   per-device stack via `jax.make_array_from_single_device_arrays`: the
-  host-side plan arrays never leave their host; ppermute moves item shards
-  over ICI within a slice and DCN between slices (XLA inserts the right
-  transport — the collective pattern is unchanged from single-host).
+  host-side block arrays never leave their host; ppermute moves item shards
+  between devices and hosts (XLA inserts the right transport — the
+  collective pattern is unchanged from single-host).
 """
 
 from __future__ import annotations
@@ -67,8 +66,8 @@ def init_distributed(
 def local_user_shards(mesh: Mesh) -> list:
     """Indices p (user shards = mesh positions) owned by THIS process.
 
-    The diagonal-block stores key chunk files by user shard p; a host only
-    scatters/loads the blocks for its own devices' positions."""
+    The diagonal-block stack is indexed by user shard p; a host only
+    stages the blocks for its own devices' positions."""
     me = jax.process_index()
     return [
         i for i, d in enumerate(mesh.devices.flat) if d.process_index == me
@@ -84,7 +83,7 @@ def put_host_local(
     owned mesh position (in ``owned`` order). Each host calls this with
     ONLY its own slabs; the returned global jax.Array has shape
     (n_dev * slab, ...) sharded over the mesh axis, without any host ever
-    materializing another host's data (the DCN boundary of SURVEY §2)."""
+    materializing another host's data (the host boundary of SURVEY §2)."""
     devices = list(mesh.devices.flat)
     n_dev = len(devices)
     slab = local_stack.shape[1:]
@@ -104,8 +103,7 @@ def put_row_sharded(mesh: Mesh, x: np.ndarray):
 
     Single-process this is a plain ``jax.device_put``; under
     ``jax.distributed`` each process uploads ONLY the row chunks of its own
-    devices (the DCN boundary — no host materializes or transfers another
-    host's shard). Requires n_dev | x.shape[0], which every table/plan
+    devices (no host materializes or transfers another host's shard). Requires n_dev | x.shape[0], which every table/plan
     padder in this repo guarantees."""
     shard = row_sharding(mesh)
     if jax.process_count() <= 1:

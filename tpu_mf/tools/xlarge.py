@@ -201,7 +201,7 @@ def xlarge_convert(
     rng = np.random.default_rng(seed)
 
     own_workdir = workdir is None
-    workdir = workdir or tempfile.mkdtemp(prefix="tpumf_xlarge_")
+    workdir = workdir or tempfile.mkdtemp(prefix="mf_xlarge_")
     os.makedirs(workdir, exist_ok=True)
 
     parts: List[Tuple[str, str]] = []  # (name, output path)

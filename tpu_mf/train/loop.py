@@ -7,7 +7,8 @@ epoch loop, printing the reference's per-epoch line:
     iter#<n>\t<elapsed>\ttRMSE=<rmse>          (reference: src/mf.h:35)
 
 The TBB pipeline (read -> parse -> update, reference src/mf.h:6-70) becomes:
-host-side batch preparation + device scan (tpu_mf.ops.sgd.sgd_epoch).
+host-side batch preparation + device scan (tpu_mf.ops.sgd.sgd_epoch), or with
+--mesh N the diagonal-block scan of parallel/dsgd.py (mf only).
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ class _Observer:
     def epoch_done(self, rnd: int, params_fn=None, extras_fn=None, **fields):
         """Record one finished round: metrics line + resume checkpoint.
 
-        params_fn/extras_fn are lazy so the fused paths only pay for table
-        trimming when a checkpoint is actually being written.
+        params_fn/extras_fn are lazy so the mesh path only gathers its
+        sharded tables when a checkpoint is actually being written.
         """
         if not self._diverged:
             # Once-per-run divergence diagnosis: batched/Hogwild SGD
@@ -141,20 +142,6 @@ def train_mf(
                     cfg, train_ds, test_ds, params, log, obs, start
                 )
 
-            if cfg.use_pallas and jax.default_backend() != "cpu":
-                from tpu_mf.ops.pallas_sgd import MAX_DIM
-
-                if cfg.dim <= MAX_DIM:
-                    # _pick_mf_runners routes: slot/packed/gen-1 when the
-                    # item table fits VMEM, the item-sharded wrapper
-                    # (ops/phi_shard.py) when it doesn't.
-                    return _train_mf_pallas(
-                        cfg, train_ds, test_ds, params, log, obs, start
-                    )
-                log(f"# dim {cfg.dim} > {MAX_DIM} (the reference's own "
-                    "sweep caps at 2048, src/run.py:13): no fused kernel; "
-                    "using the XLA path (slow)")
-
             # Static batch layout; per-epoch shuffle permutes within it on
             # device.
             flat, shuffle = _static_batches(train_ds, cfg.batch_size)
@@ -192,375 +179,24 @@ def train_mf(
         obs.close()
 
 
-def _pick_mf_runners(cfg, train_ds, params, log, start=0):
-    """(initial runner, steady-state slot runner or None, its first epoch).
-
-    Compatibility view of _mf_runner_schedule for callers that only need
-    the initial and steady-state kernels (bench.py, converge_ml10m); the
-    loop itself follows the full multi-phase schedule.
-    """
-    from tpu_mf.ops.pallas_sgd_slot import SlotEpochRunner
-
-    sched = _mf_runner_schedule(cfg, train_ds, params, log, start)
-    last_ep, last = sched[-1]
-    if isinstance(last, SlotEpochRunner):
-        return sched[0][1], last, last_ep
-    return sched[0][1], None, None
-
-
-def _slot_phase_ladder(cfg, mk, log, start=0, kind="slot"):
-    """Slot-kernel phase ladder shared by the single-chip and mesh MF
-    schedules (round-4 ADVICE #2: one copy, both paths).
-
-    ``mk(sub=None, striped=False)`` returns a candidate runner; staging is
-    lazy (SlotEpochRunner/ShardedSlotRunner.materialize), so losing probe
-    candidates never upload plans to the device (round-4 ADVICE #1).
-
-    Returns ``[(first_epoch, runner), ...]`` sorted by epoch: the
-    delta-striped plan at ITS envelope-clearing epoch, a plain auto-sub
-    plan for the middle epochs, and below that a LADDER of smaller-sub
-    phases (round-4 ADVICE #3): every probed sub serves from its own
-    engage epoch until a larger sub's engage epoch — not just the single
-    earliest-engaging one. A ladder phase must cover >= 2 epochs; a
-    1-epoch phase cannot amortize its kernel compile. Sub floor 128:
-    measured at the engagement etas, sub 64's shorter window costs more
-    than it engages (benchmarks/sweep_smallwin.py; single-chip
-    measurement — unmeasured on the mesh, floor kept there as the best
-    available prior).
-    """
-    def first_env(r):
-        for it in range(start + 1, cfg.iters + 1):
-            if r.envelope_ok(cfg.eta_at(it)):
-                return it
-        return None
-
-    phases = []
-    striped = mk(striped=True)
-    s2 = first_env(striped)
-    first = cfg.iters + 1
-    if s2 is not None:
-        phases.append((s2, striped))
-        first = s2
-        if s2 > start + 1:
-            log(f"# delta-striped {kind} columns engage at epoch {s2} "
-                f"(eta {cfg.eta_at(s2):g})")
-    if first > start + 1:
-        plain = mk()
-        s1 = first_env(plain)
-        if s1 is not None and s1 < first:
-            phases.insert(0, (s1, plain))
-            first = s1
-    if phases and first > start + 2:
-        from tpu_mf.ops.pallas_sgd_slot import _SUB_CANDIDATES
-
-        auto_sub = phases[0][1].sub
-        for sub in sorted(
-            (s for s in _SUB_CANDIDATES if 128 <= s < auto_sub),
-            reverse=True,
-        ):
-            if first <= start + 1:
-                break
-            r = mk(sub=sub)
-            e = first_env(r)
-            if e is not None and e <= first - 2:
-                log(f"# small-window {kind} kernel (sub {r.sub}) engages "
-                    f"at epoch {e} (eta {cfg.eta_at(e):g})")
-                phases.insert(0, (e, r))
-                first = e
-    return phases
-
-
-def _mf_runner_schedule(cfg, train_ds, params, log, start=0):
-    """Epoch-indexed kernel schedule ``[(first_epoch, runner), ...]`` —
-    each runner serves epochs [first_epoch, next phase's first_epoch).
-
-    The slot-major kernel is the fastest eligible SGD kernel but its
-    staleness window is sub*P slots per column, so warm-start etas can break
-    its envelope (eta * max_window_dups <= 0.2). eta decays as eta0/t^gam,
-    so instead of a single check at eta0 (which would pin the whole run to
-    the slower packed kernel), the schedule is: run the packed/mega kernel
-    for the early epochs and SWITCH to the slot kernel at the first epoch
-    whose eta clears the exact per-plan envelope. A shuffle-invariant
-    pigeonhole bound (slot_dup_lower_bound) runs first so the argsort-bound
-    slot plans are never built when no epoch could ever use them.
-
-    Round 4 adds a steady-state phase: DELTA-STRIPED slot columns
-    (prepare_cells_stripe) pack all P delta classes of a (user-tile,
-    item-tile) pair into shared columns — fewer, fuller batches (+18%
-    measured at calibrated ML-10M rank 8) at the price of a taller column
-    window, so striping engages at the first epoch where ITS envelope
-    clears, and a plain slot plan covers the middle epochs when that is
-    later.
-    """
-    from tpu_mf.ops.pallas_sgd import PallasEpochRunner, pallas_eligible
-    from tpu_mf.ops.pallas_sgd_packed import PackedEpochRunner, packed_eligible
-    from tpu_mf.ops.pallas_sgd_slot import (
-        SlotEpochRunner,
-        slot_dup_lower_bound,
-        slot_eligible,
-    )
-
-    n_plans = 2 if cfg.iters > 1 else 1  # between-epoch reshuffling
-    if not pallas_eligible(params, cfg.batch_size):
-        # Item table beyond VMEM (the reference's Yahoo catalog,
-        # src/run.py:6-9): item-sharded fused epochs — K chained fused
-        # calls per epoch, each with one balanced phi shard resident
-        # (ops/phi_shard.py). Was a silent ~50x XLA fallback through
-        # round 3.
-        from tpu_mf.ops.phi_shard import PhiShardedRunner
-
-        runner = PhiShardedRunner(
-            train_ds, dim=cfg.dim, seed=cfg.seed, n_plans=n_plans,
-            saturate=True,
-        )
-        log(f"# item table exceeds VMEM (nv={train_ds.nv}): item-sharded "
-            f"fused epochs, {runner.n_shards} shards, tiles "
-            f"{runner.tile_u}x{runner.tile_v}, batch {runner.batch}")
-        return [(start + 1, runner)]
-
-    # Dense-cell kernel (ops/pallas_sgd_dense.py): when the rating matrix's
-    # (user-tile x item-tile) cells fit HBM as dense sum/count tiles, the
-    # epoch is plain tile matmuls — 2.1x the one-hot kernels at rank 64
-    # (the round-5 roofline's named wall; PERF_NOTES). Engagement epoch is
-    # the A/B-calibrated dense window bound (dense_engage_epoch); earlier
-    # epochs run the regular packed/slot ladder below.
-    from tpu_mf.ops.pallas_sgd_dense import (
-        DenseEpochRunner,
-        dense_eligible,
-        dense_engage_epoch,
-    )
-
-    dense_from = None
-    dense_r = None
-    if getattr(cfg, "use_dense", True) and dense_eligible(params, train_ds):
-        dense_r = DenseEpochRunner(
-            train_ds, seed=cfg.seed, saturate=True, dim=cfg.dim,
-        )
-        dense_from = dense_engage_epoch(
-            cfg.eta_at, cfg.iters, cfg.dim, dense_r.plan, start,
-        )
-        if dense_from == start + 1:
-            log(f"# dense-cell kernel from epoch {dense_from} "
-                f"(k_cells {dense_r.k_cells})")
-            return [(dense_from, dense_r)]
-        if dense_from is not None:
-            log(f"# dense-cell kernel engages at epoch {dense_from} "
-                f"(eta {cfg.eta_at(dense_from):g}, k_cells "
-                f"{dense_r.k_cells})")
-
-    phases = []
-    if slot_eligible(params, cfg.batch_size):
-        lb, _ = slot_dup_lower_bound(train_ds, dim=cfg.dim, balance=True)
-        if cfg.eta_at(cfg.iters) * lb <= 0.2:
-            # balance=True: LPT slot relabeling recovers plan fill on zipfy
-            # marginals (calibrated ML-10M: 0.48 -> 0.75 measured). Probed
-            # candidates stage lazily; only scheduled phases upload plans.
-            def mk(sub=None, striped=False):
-                return SlotEpochRunner(
-                    train_ds, seed=cfg.seed, n_plans=n_plans, dim=cfg.dim,
-                    balance=True, saturate=True, striped=striped, sub=sub,
-                )
-
-            phases = _slot_phase_ladder(cfg, mk, log, start)
-        if not phases and dense_from is None:
-            log("# slot kernel staleness envelope exceeded at every epoch's "
-                "eta; using the lane-packed kernel")
-
-    def _with_dense(sched):
-        if dense_from is None:
-            return sched
-        return [p for p in sched if p[0] < dense_from] + [
-            (dense_from, dense_r)]
-
-    if phases and phases[0][0] <= start + 1:
-        return _with_dense(phases)
-    if phases:
-        log(f"# slot kernel envelope clears at epoch {phases[0][0]} "
-            f"(eta {cfg.eta_at(phases[0][0]):g}); packed kernel until then")
-
-    if packed_eligible(params, cfg.batch_size):
-        # Small rank: the lane-packed kernel (P rows per 128-lane register)
-        # covers the epochs before the slot envelope clears (or all of them).
-        runner = PackedEpochRunner(
-            train_ds, batch=max(8192, cfg.batch_size), seed=cfg.seed,
-            n_plans=n_plans, dim=cfg.dim, saturate=True,
-        )
-    elif cfg.dim <= 126:
-        # Mid rank (63..126): blocked gen-1 at tile 256 with the MXU-side
-        # pred (round 3: 251M/s calibrated rank 64 vs 212M for the
-        # round-2 mega-resident t384 pick; removing the VPU pred rowsum
-        # shifts the balance to the matmuls, so the tile sweet spot drops
-        # from 384 to 256 — benchmarks/sweep_mxupred{,2,3}.py).
-        from tpu_mf.ops.pallas_sgd import pick_cell_geometry
-
-        tu, tv, b = pick_cell_geometry(train_ds)
-        runner = PallasEpochRunner(
-            train_ds, tile_u=tu, tile_v=tv, batch=b, seed=cfg.seed,
-            n_plans=n_plans, balance=True, saturate=True,
-        )
-    else:
-        # 256-lane rows (dim >= 126) keep tile 256: measured at dim=128,
-        # tile 256 = 186M/s vs tile 384 = 154M/s (the matmul/one-hot width
-        # doubles with the lane count, so the tile sweet spot halves).
-        # balance + geometry chooser + per-row window-step saturation:
-        # fill-tuned tiles (8 | n_gv, sub ~ 1.12*mean cell) and stability
-        # at warm etas on zipfy heads (PERF_NOTES round-3 closers).
-        if cfg.dim >= 126:
-            from tpu_mf.ops.pallas_sgd import pick_cell_geometry
-
-            tu, tv, b = pick_cell_geometry(train_ds)
-        else:
-            tu, tv, b = 512, 512, max(1024, cfg.batch_size)
-        runner = PallasEpochRunner(
-            train_ds, tile_u=tu, tile_v=tv, batch=b, seed=cfg.seed,
-            n_plans=n_plans, balance=True, saturate=True,
-        )
-    return _with_dense([(start + 1, runner)] + phases)
-
-
-def _train_mf_pallas(cfg, train_ds, test_ds, params, log, obs, start=0) -> MFParams:
-    """MF training epochs on the fused Pallas kernel (ops/pallas_sgd.py).
-
-    n_plans=2 rotates between two independently-shuffled cell plans per
-    epoch (the reference replays one fixed file order every epoch,
-    src/mf.h:37-44; rotation strictly improves on that). Kernel choice and
-    the mid-run packed->slot switch: _pick_mf_runners.
-    """
-    sched = _mf_runner_schedule(cfg, train_ds, params, log, start)
-    runner = sched[0][1]
-    upcoming = list(sched[1:])
-    tables = runner.pad(params)
-    gb = float(params.gb)
-    t0 = time.perf_counter()
-    for it in range(start + 1, cfg.iters + 1):
-        while upcoming and it >= upcoming[0][0]:
-            # eta has decayed into the next kernel's staleness envelope:
-            # hand the tables over to the faster kernel mid-run.
-            nxt = upcoming.pop(0)[1]
-            log(f"# epoch {it}: switching to {type(nxt).__name__}"
-                f"{' (striped)' if getattr(nxt, 'striped', False) else ''}")
-            tables = nxt.pad(runner.trim(tables))
-            runner = nxt
-        tables = runner.epoch(tables, cfg.eta_at(it), cfg.lam, gb, epoch_idx=it)
-        jax.block_until_ready(tables[0])
-        elapsed = time.perf_counter() - t0
-        t_rmse = None
-        if test_ds is not None:
-            t_rmse = float(rmse(runner.trim(tables), test_ds))
-            log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
-        else:
-            log(f"iter#{it}\t{elapsed:f}")
-        obs.epoch_done(
-            it, params_fn=lambda: runner.trim(tables), alg="mf",
-            kernel="pallas", eta=cfg.eta_at(it), elapsed=elapsed, tRMSE=t_rmse,
-        )
-    return runner.trim(tables)
-
-
 def _train_mf_sharded(cfg, train_ds, test_ds, params, log, obs=None, start=0) -> MFParams:
-    """MF training over a --mesh N device mesh (diagonal-block DSGD).
-
-    Uses the fused Pallas kernel per device on TPU, the XLA kernel on CPU
-    meshes (where Pallas would run interpreted).
-    """
+    """MF training over a --mesh N device mesh (diagonal-block DSGD,
+    parallel/dsgd.py)."""
+    from tpu_mf.data.blocker import partition_diagonal
+    from tpu_mf.parallel.dsgd import (
+        dsgd_epoch,
+        gather_params,
+        put_blocks,
+        shard_params,
+    )
     from tpu_mf.parallel.mesh import make_mesh
 
     mesh = make_mesh(cfg.mesh)
-    on_tpu = jax.default_backend() != "cpu"
     t0 = time.perf_counter()
-    if cfg.use_pallas and on_tpu:
-        from tpu_mf.parallel.dsgd_pallas import ShardedPallasRunner
-        from tpu_mf.parallel.dsgd_slot import (
-            ShardedSlotRunner,
-            sharded_slot_eligible,
-        )
-
-        # Mirror the single-chip schedule (_mf_runner_schedule) AND its
-        # mid-run handovers (round-3 VERDICT weak #5: the mesh check was
-        # eta0-only) via the SHARED phase-ladder helper (round-4 ADVICE
-        # #2): gen-1 until eta decays into the slot envelope, a ladder of
-        # plain slot subs for the middle epochs, delta-striped columns
-        # once THEIR taller window clears. Tables ride the same ring
-        # across handovers.
-        sched = []
-        if sharded_slot_eligible(params, cfg.mesh):
-            def mk(sub=None, striped=False):
-                return ShardedSlotRunner(
-                    train_ds, mesh, dim=cfg.dim, seed=cfg.seed,
-                    balance=True, striped=striped, sub=sub,
-                )
-
-            sched = _slot_phase_ladder(cfg, mk, log, start, kind="sharded slot")
-            if not sched:
-                log("# sharded slot kernel envelope exceeded at every "
-                    "epoch's eta; using the gen-1 blocked kernel on the mesh")
-            elif sched[0][0] > start + 1:
-                log(f"# sharded slot kernel envelope clears at epoch "
-                    f"{sched[0][0]} (eta {cfg.eta_at(sched[0][0]):g}); "
-                    "gen-1 blocked kernel until then")
-        if not sched or sched[0][0] > start + 1:
-            # Same tile rule as the single-chip gen-1 pick: MXU-pred moves
-            # the mid/large-rank sweet spot to 256 (sweep_mxupred2.py).
-            tile = 256 if cfg.dim >= 63 else 512
-            sched.insert(0, (start + 1, ShardedPallasRunner(
-                train_ds, mesh, tile_u=tile, tile_v=tile,
-                batch=max(1024, cfg.batch_size), seed=cfg.seed,
-            )))
-        runner = sched[0][1]
-        upcoming = list(sched[1:])
-        tables = runner.pad(params)
-        for it in range(start + 1, cfg.iters + 1):
-            while upcoming and it >= upcoming[0][0]:
-                nxt = upcoming.pop(0)[1]
-                log(f"# epoch {it}: switching mesh kernel to "
-                    f"{type(nxt).__name__}"
-                    f"{' (striped)' if getattr(nxt, 'striped', False) else ''}")
-                tables = nxt.pad(runner.trim(tables))
-                runner = nxt
-            tables = runner.epoch(tables, cfg.eta_at(it), cfg.lam)
-            jax.block_until_ready(tables[0])
-            elapsed = time.perf_counter() - t0
-            t_rmse = None
-            if test_ds is not None:
-                t_rmse = float(rmse(runner.trim(tables), test_ds))
-                log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
-            else:
-                log(f"iter#{it}\t{elapsed:f}")
-            if obs is not None:
-                obs.epoch_done(
-                    it, params_fn=lambda: runner.trim(tables), alg="mf",
-                    kernel="pallas-sharded", eta=cfg.eta_at(it),
-                    elapsed=elapsed, tRMSE=t_rmse,
-                )
-        return runner.trim(tables)
-
-    from tpu_mf.data.blocker import cdiv, partition_diagonal
-    from tpu_mf.parallel.dsgd import ShardedMF, dsgd_epoch, gather_params, put_blocks
-
     blocks = put_blocks(
         mesh, partition_diagonal(train_ds, cfg.mesh, cfg.batch_size, cfg.seed)
     )
-    # Shard the (already initialized / warm-started) params directly. Under
-    # jax.distributed each process stages only its own devices' row chunks
-    # (put_row_sharded; params are identical across processes — same seed).
-    from tpu_mf.parallel.multihost import put_row_sharded
-
-    pu = cdiv(train_ds.nu, cfg.mesh) * cfg.mesh
-    pv = cdiv(train_ds.nv, cfg.mesh) * cfg.mesh
-
-    def _pad_rows(x, rows):
-        h = np.asarray(x)
-        return np.pad(h, ((0, rows - h.shape[0]),) + ((0, 0),) * (h.ndim - 1))
-
-    state = ShardedMF(
-        theta=put_row_sharded(mesh, _pad_rows(params.theta, pu)),
-        phi=put_row_sharded(mesh, _pad_rows(params.phi, pv)),
-        bu=put_row_sharded(mesh, _pad_rows(params.bu, pu)),
-        bv=put_row_sharded(mesh, _pad_rows(params.bv, pv)),
-        gb=jnp.asarray(cfg.gb, jnp.dtype(cfg.dtype)),
-        nu=train_ds.nu,
-        nv=train_ds.nv,
-    )
+    state = shard_params(mesh, params, cfg.gb)
     for it in range(start + 1, cfg.iters + 1):
         state = dsgd_epoch(mesh, state, blocks, cfg.eta_at(it), cfg.lam)
         jax.block_until_ready(state.theta)
@@ -589,15 +225,14 @@ def train_mf_stream(
     nv: Optional[int] = None,
     log: Callable[[str], None] = print,
 ) -> MFParams:
-    """Out-of-core MF training from an on-disk stream (any format).
-
-    On TPU with an eligible dim this runs the FUSED kernel over a ShardStore
-    (io/stream_fused.py) — near in-memory speed; otherwise it falls back to
-    the per-batch XLA step (io/stream.py). Reference: the TBB read pipeline,
-    src/mf.h:6-70.
+    """Out-of-core MF training from an on-disk stream (any format): the
+    per-batch SGD step fed by the prefetching reader (io/stream.py).
+    Reference: the TBB read pipeline, src/mf.h:6-70.
     """
     from tpu_mf.data.streamfmt import scan_stats
+    from tpu_mf.io.stream import streaming_sgd_epoch
 
+    cfg.check_mesh("mf", stream=True)
     if params is None:
         if not (nu and nv):
             nu, nv, _ = scan_stats(path)
@@ -611,78 +246,15 @@ def train_mf_stream(
         params = rparams
         log(f"# resumed from round {start} ({obs.prefix})")
 
-    use_fused = cfg.use_pallas and jax.default_backend() != "cpu"
-    if use_fused:
-        from tpu_mf.ops.pallas_sgd import pallas_eligible
-
-        use_fused = pallas_eligible(params, cfg.batch_size)
-        if not use_fused:
-            log("# --stream: fused kernel ineligible (dim > 253 or item "
-                "table beyond VMEM); using the XLA streaming path (slow). "
-                "For large catalogs, in-memory training uses item-sharded "
-                "fused epochs (ops/phi_shard.py).")
-
     try:
         with obs.trace():
             t0 = time.perf_counter()
-            trainer = None
-            kernel_name = "pallas-stream"
-            if cfg.mesh > 1:
-                # Out-of-core AND multi-chip: diagonal-block DSGD whose
-                # per-substep plans stream from disk (io/stream_sharded.py).
-                from tpu_mf.io.stream_sharded import ShardedStreamTrainer
-                from tpu_mf.parallel.mesh import make_mesh
-
-                on_cpu = jax.default_backend() == "cpu"
-                tile = 64 if on_cpu else 512
-                trainer = ShardedStreamTrainer(
-                    path, make_mesh(cfg.mesh), tile_u=tile, tile_v=tile,
-                    batch=(min(cfg.batch_size, 512) if on_cpu
-                           else max(1024, cfg.batch_size)),
-                    seed=cfg.seed,
-                    mxu="float32" if on_cpu else "bfloat16",
-                    interpret=on_cpu,
-                )
-                kernel_name = "pallas-stream-sharded"
-            elif use_fused:
-                from tpu_mf.io.stream_fused import FusedStreamTrainer
-
-                trainer = FusedStreamTrainer(
-                    path, batch=max(1024, cfg.batch_size), seed=cfg.seed
-                )
-            if trainer is not None:
-                obs.n_train = trainer.n
-                tables = trainer.pad(params)
-                gb = float(params.gb)
-                try:
-                    for it in range(start + 1, cfg.iters + 1):
-                        tables = trainer.epoch(
-                            tables, cfg.eta_at(it), cfg.lam, gb, epoch_idx=it
-                        )
-                        jax.block_until_ready(tables[0])
-                        elapsed = time.perf_counter() - t0
-                        t_rmse = None
-                        if test_ds is not None:
-                            t_rmse = float(rmse(trainer.trim(tables), test_ds))
-                            log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
-                        else:
-                            log(f"iter#{it}\t{elapsed:f}")
-                        obs.epoch_done(
-                            it, params_fn=lambda: trainer.trim(tables),
-                            alg="mf", kernel=kernel_name,
-                            eta=cfg.eta_at(it), elapsed=elapsed, tRMSE=t_rmse,
-                        )
-                    return trainer.trim(tables)
-                finally:
-                    trainer.close()
-
-            from tpu_mf.io.stream import streaming_sgd_epoch
-
             for it in range(start + 1, cfg.iters + 1):
                 params, n = streaming_sgd_epoch(
                     params, path, cfg.eta_at(it), cfg.lam,
                     batch_size=cfg.batch_size, fly=cfg.fly,
                 )
+                jax.block_until_ready(params.theta)
                 obs.n_train = n
                 elapsed = time.perf_counter() - t0
                 t_rmse = None
@@ -718,8 +290,8 @@ def train_dpmf_stream(
     """
     from tpu_mf.data.streamfmt import scan_profile
     from tpu_mf.io.stream import streaming_mse, streaming_sgld_round
-    from tpu_mf.models.dpmf import DPMFState as _S  # noqa: F401
 
+    cfg.check_mesh("dpmf", stream=True)
     nu, nv, ntrain, uc, vc, rsum = scan_profile(path)
     key = jax.random.PRNGKey(cfg.seed)
     params = init_mf(key, nu, nv, cfg.dim, gb=cfg.gb,
@@ -751,36 +323,6 @@ def train_dpmf_stream(
     bound = dp_bound(cfg.epsilon, cfg.tau, nv)
     base_key = jax.random.PRNGKey(cfg.seed ^ 0xD1FF)
 
-    trainer = None
-    if cfg.mesh > 1:
-        # Out-of-core AND multi-chip dpmf (round-3 VERDICT #5: was mf-only).
-        from tpu_mf.ops.pallas_sgld import (
-            MAX_DIM_SGLD,
-            MAX_EXACT_COUNT,
-            sgld_row_lanes,
-        )
-        from tpu_mf.ops.pallas_sgd import cdiv as _cdiv
-
-        on_cpu = jax.default_backend() == "cpu"
-        tile = 64 if on_cpu else 512
-        chunk_v = _cdiv(_cdiv(nv, cfg.mesh), tile) * tile
-        if (cfg.dim > MAX_DIM_SGLD or ntrain >= MAX_EXACT_COUNT
-                or chunk_v * sgld_row_lanes(cfg.dim) * 4
-                > 64 * 1024 * 1024):
-            log("# --stream --mesh dpmf: per-device chunk or dim beyond "
-                "the fused SGLD kernel; using the single-chip XLA stream")
-        else:
-            from tpu_mf.io.stream_sharded import SgldShardedStreamTrainer
-            from tpu_mf.parallel.mesh import make_mesh
-
-            trainer = SgldShardedStreamTrainer(
-                path, make_mesh(cfg.mesh), tile_u=tile, tile_v=tile,
-                batch=(min(cfg.batch_size, 512) if on_cpu
-                       else max(1024, cfg.batch_size)),
-                seed=cfg.seed, interpret=on_cpu,
-                mxu="float32" if on_cpu else "bfloat16",
-            )
-
     obs = _Observer(cfg, ntrain, log)
     start, rparams, rex = obs.resume()
     if rparams is not None:
@@ -808,26 +350,11 @@ def train_dpmf_stream(
                     bound=jnp.float32(bound),
                     ntrain=jnp.float32(ntrain),
                 )
-                if trainer is not None:
-                    scal = (eta_r * ntrain * bound
-                            * float(state.lambda_r))
-                    trainer.set_lambdas(state)
-                    tables = trainer.pad(state)
-                    tables = trainer.epoch(
-                        tables, int(state.gcount),
-                        (eta_r, cfg.temp, bound, scal,
-                         float(state.params.gb)),
-                        noise_seed=cfg.seed * 1_000_003
-                        + rnd * trainer.seed_stride,
-                        epoch_idx=rnd - 1,
-                    )
-                    state = trainer.unpack(state, tables)
-                else:
-                    state, _ = streaming_sgld_round(
-                        state, path, hyper,
-                        jax.random.fold_in(base_key, rnd),
-                        batch_size=cfg.batch_size, fly=cfg.fly,
-                    )
+                state, _ = streaming_sgld_round(
+                    state, path, hyper,
+                    jax.random.fold_in(base_key, rnd),
+                    batch_size=cfg.batch_size, fly=cfg.fly,
+                )
                 state = finish_noise(
                     state, jnp.float32(eta_r), jnp.float32(cfg.temp),
                     jax.random.fold_in(base_key, rnd + 500_000),
@@ -863,10 +390,7 @@ def train_dpmf_stream(
                         gcountv=np.asarray(state.gcountv),
                         gcount=np.int32(state.gcount),
                     ),
-                    alg="dpmf",
-                    kernel=("pallas-stream-sharded" if trainer is not None
-                            else "xla-stream"),
-                    eta=eta_r,
+                    alg="dpmf", kernel="xla-stream", eta=eta_r,
                     elapsed=elapsed, RMSE=float(np.sqrt(train_mse)),
                     tRMSE=t_rmse,
                 )
@@ -874,8 +398,6 @@ def train_dpmf_stream(
                     save_fn(state, rnd)
             return state
     finally:
-        if trainer is not None:
-            trainer.close()
         obs.close()
 
 
@@ -892,6 +414,7 @@ def train_admf_stream(
     from tpu_mf.io.stream import streaming_adreg_epoch
     from tpu_mf.ops.adreg import AdRegHyper
 
+    cfg.check_mesh("admf", stream=True)
     nu, nv, ntrain = scan_stats(path)
     key = jax.random.PRNGKey(cfg.seed)
     state = init_admf(
@@ -918,55 +441,21 @@ def train_admf_stream(
         jnp.asarray(valid_ds.v),
         jnp.asarray(valid_ds.r),
     )
-    trainer = None
-    if cfg.mesh > 1:
-        # Out-of-core AND multi-chip admf (round-3 VERDICT #5: was mf-only).
-        from tpu_mf.ops.pallas_sgd import MAX_DIM, cdiv as _cdiv, row_lanes
-
-        on_cpu = jax.default_backend() == "cpu"
-        tile = 64 if on_cpu else 512
-        chunk_v = _cdiv(_cdiv(nv, cfg.mesh), tile) * tile
-        if (cfg.dim > MAX_DIM
-                or chunk_v * row_lanes(cfg.dim) * 4 > 64 * 1024 * 1024):
-            log("# --stream --mesh admf: per-device chunk or dim beyond "
-                "the fused kernel; using the single-chip XLA stream")
-        else:
-            from tpu_mf.io.stream_sharded import AdRegShardedStreamTrainer
-            from tpu_mf.parallel.mesh import make_mesh
-
-            trainer = AdRegShardedStreamTrainer(
-                path, make_mesh(cfg.mesh), valid_ds, tile_u=tile,
-                tile_v=tile,
-                batch=(min(cfg.batch_size, 512) if on_cpu
-                       else max(1024, cfg.batch_size)),
-                seed=cfg.seed, loss=cfg.loss, interpret=on_cpu,
-                mxu="float32" if on_cpu else "bfloat16",
-            )
     base_key = jax.random.PRNGKey(cfg.seed ^ 0xADF0)
     t0 = time.perf_counter()
-    tables = None
     try:
         with obs.trace():
-            if trainer is not None:
-                tables = trainer.pad(state)
             for it in range(start + 1, cfg.iters + 1):
-                if trainer is not None:
-                    tables = trainer.epoch(
-                        tables, cfg.eta_at(it), cfg.eta_reg_at(it),
-                        jax.random.fold_in(base_key, it),
-                    )
-                    state = trainer.state(tables, state)
-                else:
-                    hyper = AdRegHyper(
-                        eta=jnp.float32(cfg.eta_at(it)),
-                        eta_reg=jnp.float32(cfg.eta_reg_at(it)),
-                        loss=cfg.loss,
-                    )
-                    state, _ = streaming_adreg_epoch(
-                        state, path, valid, hyper,
-                        jax.random.fold_in(base_key, it),
-                        batch_size=cfg.batch_size, fly=cfg.fly,
-                    )
+                hyper = AdRegHyper(
+                    eta=jnp.float32(cfg.eta_at(it)),
+                    eta_reg=jnp.float32(cfg.eta_reg_at(it)),
+                    loss=cfg.loss,
+                )
+                state, _ = streaming_adreg_epoch(
+                    state, path, valid, hyper,
+                    jax.random.fold_in(base_key, it),
+                    batch_size=cfg.batch_size, fly=cfg.fly,
+                )
                 elapsed = time.perf_counter() - t0
                 t_rmse = None
                 if test_ds is not None:
@@ -977,16 +466,11 @@ def train_admf_stream(
                 obs.epoch_done(
                     it, params_fn=lambda: state.params,
                     extras_fn=lambda: _admf_extras(state),
-                    alg="admf",
-                    kernel=("pallas-stream-sharded" if trainer is not None
-                            else "xla-stream"),
-                    eta=cfg.eta_at(it),
+                    alg="admf", kernel="xla-stream", eta=cfg.eta_at(it),
                     elapsed=elapsed, tRMSE=t_rmse,
                 )
             return state
     finally:
-        if trainer is not None:
-            trainer.close()
         obs.close()
 
 
@@ -1015,12 +499,11 @@ def train_dpmf(
 ) -> DPMFState:
     """DP-SGLD training (reference: run(DPMF&) src/main.cc:55-74).
 
-    Per round: one pass over the data with the SGLD kernel (the fused Pallas
-    kernel on TPU when eligible, else the XLA op), then the round
-    finalization of DPMF::finish_round (model.cc:299-310): flush lazy noise,
-    report train/test RMSE, Gibbs-resample the precisions, decay eta with the
-    mineta clamp, and checkpoint on the reference's cadence (round >= 100 and
-    round % 20 == 0).
+    Per round: one pass over the data with the batched SGLD step
+    (ops/sgld.py), then the round finalization of DPMF::finish_round
+    (model.cc:299-310): flush lazy noise, report train/test RMSE,
+    Gibbs-resample the precisions, decay eta with the mineta clamp, and
+    checkpoint on the reference's cadence (round >= 100 and round % 20 == 0).
 
     Stability note (inherent to the algorithm, same as the reference's math,
     dpmf.h:50): the effective per-rating step is eta*ntrain*bound*lambda_r
@@ -1028,6 +511,7 @@ def train_dpmf(
     eta*ntrain*lambda_r below ~0.1 and raise --hyperb to damp the Gibbs
     growth of lambda_r as the fit improves, or training diverges.
     """
+    cfg.check_mesh("dpmf")
     if state is None:
         key = jax.random.PRNGKey(cfg.seed)
         state = init_dpmf(
@@ -1054,88 +538,6 @@ def train_dpmf(
         )
         log(f"# resumed from round {start} ({obs.prefix})")
 
-    sgld_runner = None
-    if cfg.mesh > 1:
-        from tpu_mf.ops.pallas_sgld import sgld_pallas_eligible
-        from tpu_mf.parallel.mesh import make_mesh
-        from tpu_mf.parallel.sgld_sharded import ShardedSgldRunner
-        from tpu_mf.parallel.sgld_slot_sharded import (
-            ShardedSlotSgldRunner,
-            sharded_sgld_slot_eligible,
-        )
-
-        on_cpu = jax.default_backend() == "cpu"
-        if sharded_sgld_slot_eligible(state, cfg.mesh, ntrain):
-            # Gen-2 mesh: slot-major SGLD kernel per device (round-3
-            # VERDICT #3 — the mesh no longer multiplies the slowest
-            # kernel generation). Saturation makes the batch-granular
-            # envelope unconditional, so no per-round handover is needed.
-            log("# --mesh dpmf: slot-major (gen-2) kernel per device")
-            sgld_runner = ShardedSlotSgldRunner(
-                train_ds, make_mesh(cfg.mesh), dim=cfg.dim,
-                tile=32 if on_cpu else None, seed=cfg.seed,
-                balance=True, saturate=True, interpret=on_cpu,
-                mxu="float32" if on_cpu else "bfloat16",
-            )
-        elif not sgld_pallas_eligible(state, ntrain):
-            # dim > 251 or a round beyond the int32 counters: the sharded
-            # kernel has no fallback yet — run the (single-chip) XLA path
-            # rather than silently corrupting noise accounting.
-            log(
-                "# --mesh dpmf requires dim <= 251 and ntrain < 2^31; "
-                "falling back to the single-chip XLA path"
-            )
-        else:
-            # CPU meshes run the kernel interpreted (functional validation):
-            # keep tiles small there or the interpreter crawls.
-            tile = 64 if on_cpu else 512
-            sgld_runner = ShardedSgldRunner(
-                train_ds, make_mesh(cfg.mesh), tile_u=tile, tile_v=tile,
-                batch=min(cfg.batch_size, 512) if on_cpu else max(1024, cfg.batch_size),
-                seed=cfg.seed,
-                interpret=on_cpu, mxu="float32" if on_cpu else "bfloat16",
-            )
-    slot_is_active = False
-    if sgld_runner is None and cfg.use_pallas and jax.default_backend() != "cpu":
-        from tpu_mf.ops.pallas_sgld import PallasSgldRunner, sgld_pallas_eligible
-        from tpu_mf.ops.pallas_sgld_slot import SlotSgldRunner, sgld_slot_eligible
-
-        if sgld_slot_eligible(state, ntrain):
-            # Small rank: the slot-major SGLD kernel (batch-granular noise/
-            # decay riding the deferred apply). Its staleness window is the
-            # whole batch; per-row window-step saturation caps head-row
-            # deltas at 0.2/scal in-kernel, so the envelope holds even on
-            # zipfy marginals (where the cell layout concentrates a head
-            # row's ratings into one batch, k in the hundreds) and as the
-            # Gibbs lambda_r grows scal between rounds.
-            # striped: delta-striped columns break the nb >= n_gu*n_gv
-            # floor (pallas_sgd_slot.prepare_cells_stripe); with the VMEM
-            # noise ring, calibrated ML-10M rank 8 measured plain 295M/s
-            # vs striped 380M/s at the auto sub (round 4,
-            # benchmarks/sweep_stripe_sgld.py).
-            sgld_runner = SlotSgldRunner(
-                train_ds, seed=cfg.seed, dim=cfg.dim,
-                n_plans=2 if cfg.iters > 1 else 1, balance=True,
-                saturate=True, striped=True,
-            )
-            slot_is_active = True
-        elif sgld_pallas_eligible(state, ntrain):
-            # B=8192 measured 82M/s vs 72M at 4096 / 26M at 1024 (ML-10M
-            # rank 64); SGLD steps are tiny (eta*ntrain*lambda_r < 0.1), so
-            # the wider within-batch staleness window provably doesn't move
-            # the trajectory (A/B on the calibrated stand-in matched to 4
-            # decimals across 8 rounds).
-            sgld_runner = PallasSgldRunner(
-                train_ds, tile_u=512, tile_v=512,
-                batch=max(8192, cfg.batch_size), seed=cfg.seed,
-                n_plans=2 if cfg.iters > 1 else 1,
-            )
-        elif cfg.mesh <= 1:
-            log(
-                "# fused SGLD ineligible (see sgld_pallas_eligible); "
-                "falling back to the XLA path"
-            )
-
     flat, shuffle = _static_batches(train_ds, cfg.batch_size)
     base_key = jax.random.PRNGKey(cfg.seed ^ 0xD1FF)
 
@@ -1157,48 +559,18 @@ def train_dpmf(
         stack.enter_context(obs.trace())
         for rnd in range(start + 1, cfg.iters + 1):
             eta_r = cfg.eta_at_cutoff(rnd)
-            if sgld_runner is not None:
-                scal = eta_r * ntrain * bound * float(state.lambda_r)
-                if slot_is_active and not sgld_runner.envelope_ok(scal):
-                    # Gibbs grew lambda_r past the slot kernel's batch-
-                    # granular staleness envelope: hand over to the gen-1
-                    # fused kernel (sub-batch windows) for the rest.
-                    from tpu_mf.ops.pallas_sgld import PallasSgldRunner
-
-                    log(f"# round {rnd}: scal={scal:.3g} exceeds the slot "
-                        "SGLD envelope; switching to the gen-1 fused kernel")
-                    sgld_runner = PallasSgldRunner(
-                        train_ds, tile_u=512, tile_v=512,
-                        batch=max(8192, cfg.batch_size), seed=cfg.seed,
-                        n_plans=2 if cfg.iters > 1 else 1,
-                    )
-                    slot_is_active = False
-                sgld_runner.set_lambdas(state)
-                tables = sgld_runner.pad(state)
-                tables = sgld_runner.epoch(
-                    tables,
-                    int(state.gcount),
-                    (eta_r, cfg.temp, bound, scal, float(state.params.gb)),
-                    # Rounds must not collide in seed space: the kernel seeds
-                    # prng with (noise_seed + batch_index) per device/substep.
-                    noise_seed=cfg.seed * 1_000_003
-                    + rnd * sgld_runner.seed_stride,
-                    epoch_idx=rnd - 1,
-                )
-                state = sgld_runner.unpack(state, tables)
-            else:
-                hyper = SgldHyper(
-                    eta=jnp.float32(eta_r),
-                    temp=jnp.float32(cfg.temp),
-                    bound=jnp.float32(bound),
-                    ntrain=jnp.float32(ntrain),
-                )
-                kshuf = jax.random.fold_in(
-                    jax.random.PRNGKey(cfg.seed ^ 0x5A5A), rnd
-                )
-                batches = shuffle(kshuf, *flat)
-                knoise = jax.random.fold_in(base_key, rnd)
-                state = sgld_epoch(state, batches, hyper, knoise)
+            hyper = SgldHyper(
+                eta=jnp.float32(eta_r),
+                temp=jnp.float32(cfg.temp),
+                bound=jnp.float32(bound),
+                ntrain=jnp.float32(ntrain),
+            )
+            kshuf = jax.random.fold_in(
+                jax.random.PRNGKey(cfg.seed ^ 0x5A5A), rnd
+            )
+            batches = shuffle(kshuf, *flat)
+            knoise = jax.random.fold_in(base_key, rnd)
+            state = sgld_epoch(state, batches, hyper, knoise)
             state = finish_noise(
                 state,
                 jnp.float32(eta_r),
@@ -1253,6 +625,7 @@ def train_admf(
     """Adaptive-regularization training (reference: run(AdaptRegMF&)
     src/main.cc:77-93). The validation set plays the role of the reference's
     shuffled Record vector (plain_read_valid, model.cc:390-415)."""
+    cfg.check_mesh("admf")
     nu, nv = train_ds.nu, train_ds.nv
     if state is None:
         key = jax.random.PRNGKey(cfg.seed)
@@ -1278,165 +651,6 @@ def train_admf(
         )
         log(f"# resumed from round {start} ({obs.prefix})")
 
-    with contextlib.ExitStack() as stack:
-        stack.callback(obs.close)
-        stack.enter_context(obs.trace())
-        return _train_admf_impl(
-            cfg, train_ds, valid_ds, test_ds, state, log, obs, start
-        )
-
-
-def _admf_extras(s: AdaptRegState) -> dict:
-    return dict(
-        lam_u=np.float32(s.lam_u), lam_v=np.float32(s.lam_v),
-        lam_bu=np.float32(s.lam_bu), lam_bv=np.float32(s.lam_bv),
-    )
-
-
-def _train_admf_impl(
-    cfg, train_ds, valid_ds, test_ds, state, log, obs, start
-) -> AdaptRegState:
-    nu, nv = train_ds.nu, train_ds.nv
-    admf_extras = _admf_extras
-    if cfg.mesh > 1:
-        from tpu_mf.ops.pallas_sgd import MAX_DIM, row_lanes
-        from tpu_mf.parallel.adreg_sharded import ShardedAdRegRunner
-        from tpu_mf.parallel.mesh import make_mesh
-
-        # Eligibility guard (absent in round 2: --mesh --alg admf --dim 128
-        # hit an unguarded kernel build). The sharded kernel keeps only the
-        # PER-DEVICE phi chunk resident, so the check is against the chunk.
-        dim = state.params.theta.shape[1]
-        if dim > MAX_DIM:
-            log(f"# --mesh admf requires dim <= {MAX_DIM} (got {dim}); "
-                "falling back to the single-chip XLA path")
-        else:
-            nv_chunk = -(-nv // cfg.mesh)
-            vmem_phi = -(-nv_chunk // 512) * 512 * row_lanes(dim) * 4
-            if vmem_phi > 64 * 1024 * 1024:
-                log("# --mesh admf: per-device item chunk exceeds VMEM; "
-                    "falling back to the single-chip XLA path")
-                dim = None
-        if dim is None or dim > MAX_DIM:
-            return _train_admf_xla(cfg, train_ds, valid_ds, test_ds, state,
-                                   log, obs, start)
-
-        mesh = make_mesh(cfg.mesh)
-        on_cpu = jax.default_backend() == "cpu"
-        from tpu_mf.parallel.adreg_slot_sharded import (
-            ShardedSlotAdRegRunner,
-            sharded_adreg_slot_eligible,
-        )
-
-        if sharded_adreg_slot_eligible(state, cfg.mesh):
-            # Gen-2 mesh: slot-major AdaptReg kernel per device (round-3
-            # VERDICT #3).
-            log("# --mesh admf: slot-major (gen-2) kernel per device")
-            runner = ShardedSlotAdRegRunner(
-                train_ds, valid_ds, mesh, dim=dim,
-                tile=32 if on_cpu else None, seed=cfg.seed, loss=cfg.loss,
-                balance=True, interpret=on_cpu,
-                mxu="float32" if on_cpu else "bfloat16",
-            )
-        else:
-            tile = 64 if on_cpu else 512  # interpreter crawls on big tiles
-            runner = ShardedAdRegRunner(
-                train_ds, valid_ds, mesh, tile_u=tile, tile_v=tile,
-                batch=min(cfg.batch_size, 512) if on_cpu else max(1024, cfg.batch_size),
-                seed=cfg.seed, loss=cfg.loss,
-                interpret=on_cpu, mxu="float32" if on_cpu else "bfloat16",
-            )
-        tables = runner.pad(state)
-        t0 = time.perf_counter()
-        for it in range(start + 1, cfg.iters + 1):
-            tables = runner.epoch(
-                tables, cfg.eta_at(it), cfg.eta_reg_at(it),
-                jax.random.fold_in(jax.random.PRNGKey(cfg.seed ^ 0xADF1), it),
-            )
-            jax.block_until_ready(tables[0])
-            elapsed = time.perf_counter() - t0
-            t_rmse = None
-            if test_ds is not None:
-                t_rmse = float(rmse(runner.trim(tables), test_ds))
-                log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
-            else:
-                log(f"iter#{it}\t{elapsed:f}")
-            obs.epoch_done(
-                it,
-                params_fn=lambda: runner.trim(tables),
-                extras_fn=lambda: admf_extras(runner.state(tables, state)),
-                alg="admf", kernel="pallas-sharded", eta=cfg.eta_at(it),
-                elapsed=elapsed, tRMSE=t_rmse,
-            )
-        return runner.state(tables, state)
-
-    if cfg.use_pallas and jax.default_backend() != "cpu":
-        from tpu_mf.ops.pallas_adreg import PallasAdRegRunner, adreg_pallas_eligible
-        from tpu_mf.ops.pallas_adreg_slot import SlotAdRegRunner, adreg_slot_eligible
-        from tpu_mf.ops.pallas_sgd_slot import slot_dup_lower_bound
-
-        runner = None
-        if adreg_slot_eligible(state, cfg.batch_size):
-            # Small rank: slot-major AdaptReg (measured gen-1 fused kernel
-            # sits at ~29M/s). Same staleness envelope policy as MF's slot
-            # kernel: cheap pigeonhole pre-gate, exact per-plan stats after.
-            lb, _ = slot_dup_lower_bound(train_ds, dim=cfg.dim, balance=True)
-            if cfg.eta_at(1) * lb <= 0.2:
-                # striped: calibrated ML-10M rank 8 measured plain 326M/s
-                # vs striped 400-407M/s at the auto sub (round 4,
-                # benchmarks/sweep_stripe_adreg.py); the dup-window stats
-                # below are layout-valid for striped plans (slot_col_ids).
-                runner = SlotAdRegRunner(
-                    train_ds, valid_ds, seed=cfg.seed, loss=cfg.loss,
-                    n_plans=2 if cfg.iters > 1 else 1, dim=cfg.dim,
-                    balance=True, striped=True,
-                )
-                if cfg.eta_at(1) * runner._dup_max[8] > 0.2 or (
-                    cfg.eta_at(1) * runner._vdup_max[8] > 0.2
-                ):
-                    log("# slot AdaptReg envelope exceeded at eta0; using "
-                        "the gen-1 fused kernel")
-                    runner = None
-        if runner is None and adreg_pallas_eligible(state, cfg.batch_size):
-            runner = PallasAdRegRunner(
-                train_ds, valid_ds, tile_u=512, tile_v=512,
-                batch=max(1024, cfg.batch_size), seed=cfg.seed, loss=cfg.loss,
-                n_plans=2 if cfg.iters > 1 else 1,
-            )
-        if runner is not None:
-            tables = runner.pad(state)
-            t0 = time.perf_counter()
-            for it in range(start + 1, cfg.iters + 1):
-                tables = runner.epoch(
-                    tables, cfg.eta_at(it), cfg.eta_reg_at(it),
-                    jax.random.fold_in(jax.random.PRNGKey(cfg.seed ^ 0xADF0), it),
-                    epoch_idx=it - 1,
-                )
-                jax.block_until_ready(tables[0])
-                elapsed = time.perf_counter() - t0
-                t_rmse = None
-                if test_ds is not None:
-                    t_rmse = float(rmse(runner.trim(tables), test_ds))
-                    log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
-                else:
-                    log(f"iter#{it}\t{elapsed:f}")
-                obs.epoch_done(
-                    it,
-                    params_fn=lambda: runner.trim(tables),
-                    extras_fn=lambda: admf_extras(runner.state(tables, state)),
-                    alg="admf", kernel="pallas", eta=cfg.eta_at(it),
-                    elapsed=elapsed, tRMSE=t_rmse,
-                )
-            return runner.state(tables, state)
-
-    return _train_admf_xla(
-        cfg, train_ds, valid_ds, test_ds, state, log, obs, start
-    )
-
-
-def _train_admf_xla(
-    cfg, train_ds, valid_ds, test_ds, state, log, obs, start
-) -> AdaptRegState:
     valid = (
         jnp.asarray(valid_ds.u),
         jnp.asarray(valid_ds.v),
@@ -1446,29 +660,39 @@ def _train_admf_xla(
     base_key = jax.random.PRNGKey(cfg.seed ^ 0xADF0)
 
     t0 = time.perf_counter()
-    for it in range(start + 1, cfg.iters + 1):
-        kshuf = jax.random.fold_in(jax.random.PRNGKey(cfg.seed ^ 0x7E57), it)
-        batches = shuffle(kshuf, *flat)
-        state = adreg_epoch(
-            state,
-            batches,
-            valid,
-            (jnp.float32(cfg.eta_at(it)), jnp.float32(cfg.eta_reg_at(it))),
-            cfg.loss,
-            jax.random.fold_in(base_key, it),
-        )
-        jax.block_until_ready(state.params.theta)
-        elapsed = time.perf_counter() - t0
-        t_rmse = None
-        if test_ds is not None:
-            t_rmse = float(rmse(state.params, test_ds))
-            log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
-        else:
-            log(f"iter#{it}\t{elapsed:f}")
-        obs.epoch_done(
-            it,
-            params_fn=lambda: state.params,
-            extras_fn=lambda: _admf_extras(state),
-            alg="admf", eta=cfg.eta_at(it), elapsed=elapsed, tRMSE=t_rmse,
-        )
+    with contextlib.ExitStack() as stack:
+        stack.callback(obs.close)
+        stack.enter_context(obs.trace())
+        for it in range(start + 1, cfg.iters + 1):
+            kshuf = jax.random.fold_in(jax.random.PRNGKey(cfg.seed ^ 0x7E57), it)
+            batches = shuffle(kshuf, *flat)
+            state = adreg_epoch(
+                state,
+                batches,
+                valid,
+                (jnp.float32(cfg.eta_at(it)), jnp.float32(cfg.eta_reg_at(it))),
+                cfg.loss,
+                jax.random.fold_in(base_key, it),
+            )
+            jax.block_until_ready(state.params.theta)
+            elapsed = time.perf_counter() - t0
+            t_rmse = None
+            if test_ds is not None:
+                t_rmse = float(rmse(state.params, test_ds))
+                log(f"iter#{it}\t{elapsed:f}\ttRMSE={t_rmse:f}")
+            else:
+                log(f"iter#{it}\t{elapsed:f}")
+            obs.epoch_done(
+                it,
+                params_fn=lambda: state.params,
+                extras_fn=lambda: _admf_extras(state),
+                alg="admf", eta=cfg.eta_at(it), elapsed=elapsed, tRMSE=t_rmse,
+            )
     return state
+
+
+def _admf_extras(s: AdaptRegState) -> dict:
+    return dict(
+        lam_u=np.float32(s.lam_u), lam_v=np.float32(s.lam_v),
+        lam_bu=np.float32(s.lam_bu), lam_bv=np.float32(s.lam_bv),
+    )

@@ -4,8 +4,8 @@ The reference's observability is two printf formats: per-epoch
 ``iter#N <time> tRMSE=<x>`` (src/mf.h:35) and per-round
 ``round #N RMSE=<x> tRMSE=<y> <time>`` (src/model.cc:304-308), plus raw
 chrono timestamps. This module keeps those exact lines (train loops emit
-them) and adds what a production TPU trainer needs: machine-readable JSONL
-metrics (RMSE, eta, updates/sec/chip, lambdas) and jax.profiler trace
+them) and adds what a production trainer needs: machine-readable JSONL
+metrics (RMSE, eta, updates/sec, lambdas) and jax.profiler trace
 capture.
 """
 
@@ -51,8 +51,8 @@ def profile_trace(logdir: Optional[str]):
     """Capture a jax.profiler trace (TensorBoard-viewable) when logdir is set.
 
     The reference's only perf tooling is wall-clock prints and a prefetch
-    stride knob (SURVEY §5); on TPU the profiler shows per-kernel timing,
-    MXU utilization, and HBM traffic.
+    stride knob (SURVEY §5); on a GPU the profiler shows per-kernel device
+    time and the gaps between kernels.
     """
     if not logdir:
         yield
